@@ -43,9 +43,8 @@ def main():
         help="Simulate every race of a season as one sharded device batch",
     )
     parser.add_argument(
-        "--engine", choices=["auto", "xla", "pallas"], default="auto",
-        help="Simulation backend: fused Pallas kernel (single TPU) or XLA "
-             "lap-scan (CPU / multi-chip)",
+        "--engine", choices=["auto", "xla"], default="auto",
+        help="Simulation engine (both select the XLA lap-scan engine)",
     )
     parser.add_argument(
         "--reference-compat-elo-noop", action="store_true",
@@ -65,24 +64,16 @@ def main():
     )
     args = parser.parse_args()
 
-    from monte_carlo_gp_tpu.models.predictor import F1Predictor
-    from monte_carlo_gp_tpu.utils.jax_setup import (
-        enable_persistent_compilation_cache,
-        honor_platform_env,
-    )
-
-    honor_platform_env()
-    from monte_carlo_gp_tpu.validate.backtest import (
+    from monte_carlo_gp.models.predictor import F1Predictor
+    from monte_carlo_gp.validate.backtest import (
         backtest_model,
         backtest_model_batched,
     )
 
-    enable_persistent_compilation_cache(args.cache_dir)
-
     def predictor_factory():
         backend = None
         if args.synthetic:
-            from monte_carlo_gp_tpu.data.synthetic import SyntheticBackend
+            from monte_carlo_gp.data.synthetic import SyntheticBackend
 
             backend = SyntheticBackend(seed=args.synthetic_seed)
         return F1Predictor(
@@ -106,7 +97,7 @@ def main():
             "drop --batched to get resumable checkpoints"
         )
     if args.batched:
-        from monte_carlo_gp_tpu.models.predictor import resolve_engine
+        from monte_carlo_gp.models.predictor import resolve_engine
 
         batched_engine = resolve_engine(args.engine)
         results = backtest_model_batched(
@@ -141,7 +132,7 @@ def main():
     print(f"  Race winner:   {win_brier:.4f} ({interpret_brier(win_brier)})")
     print()
 
-    from monte_carlo_gp_tpu.validate.metrics import RANDOM_BRIER_BASELINE
+    from monte_carlo_gp.validate.metrics import RANDOM_BRIER_BASELINE
 
     random_brier = RANDOM_BRIER_BASELINE
     print(f"  (Random baseline: {random_brier:.4f})")

@@ -1,16 +1,15 @@
 """Season multi-race path vs the flat single-race engine (same total sims).
 
-History: parallel/sharded.py originally vmapped the race axis. Round 2
-measured that at ~5x per-sim cost (5.9 s vs 1.1 s flat, 200k sims x 78
-masked laps); by round 4 the flat engine had gotten 4x faster while the
-vmap time never moved (5.89 s vs 0.283 s = 20.8x) — XLA lays out the
-batched (R, S, D[, D]) intermediates pathologically. The race axis is now
-a `lax.map` of flat single-race programs inside one compile, measured at
-0.321 s = 1.12x the flat ideal on one v5e. This harness guards that ratio.
+parallel/sharded.py runs a season's races as a `lax.map` of flat
+single-race programs inside one compile, because vmapping the race axis
+makes XLA lay out the batched (R, S, D[, D]) intermediates far worse than
+the flat engine's. This harness times the season path against the flat
+engine at the same total sims and the same masked lap bucket; the ratio
+should stay near 1. Not measured on the H100.
 
-Usage: python benchmarks/season_vmap.py [impl]   # impl: threefry2x32 | rbg
-Timings follow benchmarks/README.md rules: device-staged inputs,
-np.asarray materialization, best-of-N warm.
+Usage (on a GPU): python benchmarks/season_vmap.py [impl]   # threefry2x32 | rbg
+Timings follow benchmarks/README.md: device-staged inputs, every timed call
+ends in `block_until_ready`, best-of-N warm.
 """
 
 import os
@@ -24,22 +23,19 @@ IMPL = sys.argv[1] if len(sys.argv) > 1 else None
 if IMPL:
     os.environ["MCGP_RNG_IMPL"] = IMPL
 
-import numpy as np
-
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo root
 
-from common import standard_params  # noqa: E402  (benchmarks/ sibling import)
+from benchmarks.common import require_gpu, standard_params  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from monte_carlo_gp_tpu.ops.engine import run_monte_carlo  # noqa: E402
-from monte_carlo_gp_tpu.parallel.sharded import (  # noqa: E402
-    simulate_season_sharded,
+from monte_carlo_gp.ops.engine import run_monte_carlo  # noqa: E402
+from monte_carlo_gp.parallel.sharded import (  # noqa: E402
     stack_params,
     _season_probs,
 )
-from monte_carlo_gp_tpu.parallel.mesh import make_mesh  # noqa: E402
+from monte_carlo_gp.parallel.mesh import make_mesh  # noqa: E402
 
 R = int(os.environ.get("SV_R", 20))           # races
 S = int(os.environ.get("SV_S", 10_240))       # sims/race -> R*S = 204,800
@@ -49,6 +45,7 @@ REPS = 3
 
 
 def main():
+    require_gpu()
     params = standard_params(D)
     key = jax.random.PRNGKey(0)
     params = jax.device_put(params)
@@ -57,11 +54,13 @@ def main():
     # --- flat engine at the same total sims and the same masked bucket ----
     race_laps = jax.device_put(jnp.int32(57))
     flat = run_monte_carlo(params, key, R * S, LAPS, race_laps=race_laps)
-    np.asarray(flat)  # compile + warm
+    flat.block_until_ready()  # compile + warm
     t_flat = []
     for _ in range(REPS):
         t0 = time.perf_counter()
-        np.asarray(run_monte_carlo(params, key, R * S, LAPS, race_laps=race_laps))
+        run_monte_carlo(
+            params, key, R * S, LAPS, race_laps=race_laps
+        ).block_until_ready()
         t_flat.append(time.perf_counter() - t0)
     flat_s = min(t_flat)
 
@@ -77,9 +76,9 @@ def main():
 
     def season():
         with jax.set_mesh(mesh):
-            return np.asarray(
-                _season_probs(stacked, laps_arr, keys, S, LAPS, mesh, "race", "sims")
-            )
+            return _season_probs(
+                stacked, laps_arr, keys, S, LAPS, mesh, "race", "sims"
+            ).block_until_ready()
 
     season()  # compile + warm
     t_vmap = []

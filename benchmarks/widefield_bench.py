@@ -1,31 +1,21 @@
-"""Wide-field kernel bench: fused-kernel sims/s across driver counts.
+"""Wide-field bench: XLA engine sims/s across driver counts.
 
-The evidence harness behind docs/KERNEL_DESIGN.md round 8 (the D=80
-scaling investigation) and PARITY.md's field-size row. Measures the
-fused kernel (and optionally the XLA engine) at D in {20, 40, 80} —
-262k sims x 57 laps, best-of-3 warm, device-staged inputs.
+Measures the engine at D in {20, 40, 80} — 262k sims x 57 laps, best-of-3
+warm, device-staged inputs. The rank passes are O(D^2) per lap, so the rate
+falls faster than 1/D. Not measured on the H100.
 
-Usage (real TPU):
-    python benchmarks/widefield_bench.py            # pallas, D=20/40/80
+Usage (on a GPU):
+    python benchmarks/widefield_bench.py            # D=20/40/80
     python benchmarks/widefield_bench.py 40 80      # chosen field sizes
-    MCGP_WIDEFIELD_ENGINE=xla python benchmarks/widefield_bench.py
-    MCGP_WIDEFIELD_TILE=256 python benchmarks/widefield_bench.py 80
-
-Reference numbers (2026-08-20, one v5e, tile 128):
-    pallas  D=20 2.50M   D=40 1.18M   D=80 0.389M sims/s
-    xla     D=20 1.11M   D=40 0.458M  D=80 0.139M sims/s
 """
 
-import os
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
-
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo root
 
-from benchmarks.common import stage_on_device, standard_params
+from benchmarks.common import require_gpu, stage_on_device, standard_params
 
 N_SIMS = 262_144
 LAPS = 57
@@ -34,53 +24,32 @@ LAPS = 57
 def main() -> None:
     import jax
 
+    from monte_carlo_gp.ops.engine import DEFAULT_BLOCK, run_monte_carlo
+
     fields = [int(a) for a in sys.argv[1:]] or [20, 40, 80]
-    engine = os.environ.get("MCGP_WIDEFIELD_ENGINE", "pallas")
-    np.asarray(jax.numpy.ones(8).sum())  # backend init outside timings
+    require_gpu()
 
-    if engine == "pallas":
-        from monte_carlo_gp_tpu.ops.pallas_engine import (
-            DEFAULT_SIMS_PER_TILE,
-            run_monte_carlo_pallas,
+    def run(params, k):
+        return run_monte_carlo(
+            params, k, N_SIMS, LAPS, sims_per_block=min(DEFAULT_BLOCK, N_SIMS)
         )
-
-        tile = int(
-            os.environ.get("MCGP_WIDEFIELD_TILE", DEFAULT_SIMS_PER_TILE)
-        )
-
-        def run(params, k):
-            return run_monte_carlo_pallas(
-                params, k, N_SIMS, LAPS, sims_per_tile=tile
-            )
-
-        suffix = f" tile={tile}"
-    else:
-        from monte_carlo_gp_tpu.ops.engine import DEFAULT_BLOCK, run_monte_carlo
-
-        def run(params, k):
-            return run_monte_carlo(
-                params, k, N_SIMS, LAPS,
-                sims_per_block=min(DEFAULT_BLOCK, N_SIMS),
-            )
-
-        suffix = ""
 
     for d in fields:
-        params = stage_params = standard_params(d)
-        key = jax.random.PRNGKey(42)
-        params, keys = stage_on_device(params, key, n_keys=3)
+        params, keys = stage_on_device(
+            standard_params(d), jax.random.PRNGKey(42), n_keys=3
+        )
         t0 = time.perf_counter()
-        probs = np.asarray(run(params, keys[0]))
+        probs = run(params, keys[0]).block_until_ready()
         cold = time.perf_counter() - t0
-        assert abs(probs.sum() - d) < 1e-2, probs.sum()
+        assert abs(float(probs.sum()) - d) < 1e-2, float(probs.sum())
         times = []
         for k in keys:
             t0 = time.perf_counter()
-            np.asarray(run(params, k))
+            run(params, k).block_until_ready()
             times.append(time.perf_counter() - t0)
         best = min(times)
         print(
-            f"{engine} D={d}{suffix}: cold {cold:.1f}s best {best:.3f}s "
+            f"xla D={d}: cold {cold:.1f}s best {best:.3f}s "
             f"-> {N_SIMS/best/1e6:.3f}M sims/s",
             flush=True,
         )

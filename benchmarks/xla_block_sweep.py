@@ -2,24 +2,21 @@
 
 The block size bounds the per-block working set (`ops/engine.py
 DEFAULT_BLOCK`); the optimum depends on the carried bytes per sim and the
-memory hierarchy, so it must be re-swept after any carry or layout change
-(the driver-major flip is exactly such a change — KERNEL_DESIGN.md
-round 7b).
+memory hierarchy, so it must be re-swept after any carry or layout change.
+Not measured on the H100.
 
-Usage (real TPU): python benchmarks/xla_block_sweep.py [impl]
+Usage (on a GPU): python benchmarks/xla_block_sweep.py [impl]
 where impl is an optional bit-source (`threefry2x32` default, `rbg` for the
-hardware RngBitGenerator path — ops/rng.engine_key).
+XLA RngBitGenerator path — ops/rng.engine_key).
 """
 
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
-
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo root
 
-from benchmarks.common import stage_on_device, standard_params
+from benchmarks.common import require_gpu, stage_on_device, standard_params
 
 N_SIMS = 1_048_576
 LAPS = 57
@@ -29,14 +26,14 @@ BLOCKS = (32_768, 65_536, 131_072, 262_144)
 def main() -> None:
     import jax
 
-    from monte_carlo_gp_tpu.ops.engine import run_monte_carlo
+    from monte_carlo_gp.ops.engine import run_monte_carlo
 
     impl = sys.argv[1] if len(sys.argv) > 1 else None
     if impl:
         print(f"rng impl: {impl}", file=sys.stderr, flush=True)
     params = standard_params()
     key = jax.random.PRNGKey(42)
-    np.asarray(jax.numpy.ones(8).sum())
+    require_gpu()
     params, keys = stage_on_device(params, key, n_keys=3)
 
     for block in BLOCKS:
@@ -47,13 +44,13 @@ def main() -> None:
             )
 
         t0 = time.perf_counter()
-        np.asarray(run(keys[0]))  # compile
+        run(keys[0]).block_until_ready()  # compile
         print(f"block {block}: cold {time.perf_counter() - t0:.1f}s",
               file=sys.stderr, flush=True)
         times = []
         for k in keys:
             t0 = time.perf_counter()
-            np.asarray(run(k))
+            run(k).block_until_ready()
             times.append(time.perf_counter() - t0)
         print(
             f"block {block}: best {min(times):.3f}s -> "

@@ -1,4 +1,4 @@
-"""Worked example: everything a reference user does, on the TPU framework.
+"""Worked example: everything a reference user does, on this framework.
 
 Runs against the deterministic synthetic data backend so it works offline.
 For real data, drop `backend=` (FastF1 required) or point `cache_dir` at a
@@ -13,16 +13,12 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo root
 
-from monte_carlo_gp_tpu.utils.jax_setup import honor_platform_env
-
-honor_platform_env()  # make an explicit JAX_PLATFORMS=cpu request actually win
-
 import jax
 
-from monte_carlo_gp_tpu.data.synthetic import SyntheticBackend
-from monte_carlo_gp_tpu.models.predictor import F1Predictor
-from monte_carlo_gp_tpu.parallel.sharded import simulate_season_sharded
-from monte_carlo_gp_tpu.validate.backtest import get_actual_results, get_races
+from monte_carlo_gp.data.synthetic import SyntheticBackend
+from monte_carlo_gp.models.predictor import F1Predictor
+from monte_carlo_gp.parallel.sharded import simulate_season_sharded
+from monte_carlo_gp.validate.backtest import get_actual_results, get_races
 
 
 def top3(probs: dict) -> str:

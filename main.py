@@ -14,18 +14,11 @@ import sys
 
 
 def build_predictor(args):
-    from monte_carlo_gp_tpu.models.predictor import F1Predictor
-    from monte_carlo_gp_tpu.utils.jax_setup import (
-        enable_persistent_compilation_cache,
-        honor_platform_env,
-    )
+    from monte_carlo_gp.models.predictor import F1Predictor
 
-    honor_platform_env()
-
-    enable_persistent_compilation_cache(args.cache_dir)
     backend = None
     if args.synthetic:
-        from monte_carlo_gp_tpu.data.synthetic import SyntheticBackend
+        from monte_carlo_gp.data.synthetic import SyntheticBackend
 
         backend = SyntheticBackend(seed=args.synthetic_seed)
     return F1Predictor(
@@ -85,8 +78,8 @@ def main():
     )
     parser.add_argument("--synthetic-seed", type=int, default=2718)
     parser.add_argument(
-        "--engine", choices=["auto", "xla", "pallas"], default="auto",
-        help="Simulation backend: fused Pallas kernel (TPU) or XLA lap-scan",
+        "--engine", choices=["auto", "xla"], default="auto",
+        help="Simulation engine (both select the XLA lap-scan engine)",
     )
     parser.add_argument(
         "--quali-model", choices=["elo", "bayesian", "gbm"], default="elo",
@@ -134,7 +127,7 @@ def main():
     print("Loading data and running simulations...")
     predictor = build_predictor(args)
 
-    from monte_carlo_gp_tpu.utils.profiling import Phase, phase_report, trace
+    from monte_carlo_gp.utils.profiling import Phase, phase_report, trace
 
     timers = Phase()
     try:
@@ -149,7 +142,7 @@ def main():
                 probs = predictor.simulate_plan(plan, args.simulations, args.seed)
             results = predictor.assemble_result(plan, probs)
     except ValueError as e:
-        from monte_carlo_gp_tpu.models.safety import (
+        from monte_carlo_gp.models.safety import (
             InsufficientDataError,
             generate_fallback_predictions,
         )
@@ -160,7 +153,7 @@ def main():
             # simulate/assemble path for --timings/--trace, so it mirrors
             # the wrapper here) — including the structured event, so
             # MCGP_LOG_JSON consumers see CLI fallbacks too.
-            from monte_carlo_gp_tpu.utils.logging import log_event
+            from monte_carlo_gp.utils.logging import log_event
 
             print(f"Warning: {e}, using fallback predictions")
             log_event(

@@ -3,7 +3,7 @@
 // A C++ reimplementation of the behavioral contract in SURVEY.md §2 for
 // /root/reference/src/simulation.py — the same semantics as the Python
 // oracle in tests/oracle/reference_sim.py, ~1000x faster. Used to validate
-// the TPU engines' finish-order distributions at high sample counts, where
+// the engine's finish-order distributions at high sample counts, where
 // the pure-Python oracle is too slow for tight statistical tolerances.
 //
 // Deliberately serial and simple: this is the ground truth, not the fast

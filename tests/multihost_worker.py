@@ -1,7 +1,7 @@
 """One 'host' of the multi-process dryrun (tests/test_multihost.py).
 
 Each worker owns ONE CPU device and joins a gloo-backed jax.distributed
-runtime; together the N workers form the same 'sims'-axis mesh a pod slice
+runtime; together the N workers form the same 'sims'-axis mesh N hosts
 would, and run the sharded Monte Carlo. Process 0 writes the histogram,
 which must be BITWISE identical to a single-process run of the same
 (key, n_sims) — counter-based draws make the math process-layout-blind.
@@ -29,7 +29,7 @@ def dryrun_params():
     reference run — importable so the bitwise assertion can never drift."""
     import numpy as np
 
-    from monte_carlo_gp_tpu.config import make_sim_params
+    from monte_carlo_gp.config import make_sim_params
 
     d = D_DRIVERS
     gp = np.exp(
@@ -48,12 +48,10 @@ def dryrun_params():
     )
 
 
-def main(
-    coordinator: str, num_procs: int, proc_id: int, out_path: str,
-    engine: str = "xla",
-) -> None:
+def main(coordinator: str, num_procs: int, proc_id: int, out_path: str) -> None:
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
-    from monte_carlo_gp_tpu.parallel.distributed import initialize_distributed
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    from monte_carlo_gp.parallel.distributed import initialize_distributed
 
     assert initialize_distributed(
         coordinator_address=coordinator,
@@ -69,7 +67,7 @@ def main(
     assert len(jax.devices()) == num_procs, jax.devices()
     assert len(jax.local_devices()) == 1
 
-    from monte_carlo_gp_tpu.parallel.mesh import make_mesh
+    from monte_carlo_gp.parallel.mesh import make_mesh
 
     params = dryrun_params()
     mesh = make_mesh({"sims": num_procs})
@@ -79,45 +77,15 @@ def main(
     # than cross-process compile skew on a cold cache (see
     # parallel/distributed.barrier). sharded_monte_carlo == _sharded_probs
     # under set_mesh (mesh.py:87-88).
-    from monte_carlo_gp_tpu.parallel.distributed import barrier
-    from monte_carlo_gp_tpu.parallel.mesh import _sharded_probs
+    from monte_carlo_gp.parallel.distributed import barrier
+    from monte_carlo_gp.parallel.mesh import _sharded_probs
 
-    if engine == "pallas":
-        # The fused kernel's sharded entry across REAL process boundaries
-        # (VERDICT r4 #3): shard_map over the gloo-backed global mesh, one
-        # interpreter-mode pallas_call per process, histogram psum as the
-        # only cross-process collective. Same AOT-compile -> barrier ->
-        # execute discipline as the XLA path: the first execution creates
-        # the gloo communicators whose rendezvous deadline (~30 s) is far
-        # smaller than cross-process compile skew.
-        from monte_carlo_gp_tpu.ops.pallas_engine import (
-            run_monte_carlo_pallas_sharded,
-        )
-
-        def fn(p, k):
-            # interpret="generic": the TPU interpreter's callback-based
-            # emulation deadlocks when the shard_map mesh spans processes
-            # (measured; ops/pallas_cpu_shims.py) — the generic interpreter
-            # lowers to plain HLO and produces identical zero-PRNG results.
-            return run_monte_carlo_pallas_sharded(
-                p, k, N_SIMS, TOTAL_LAPS, mesh=mesh, interpret="generic"
-            )
-
-        print(f"[worker {proc_id}] pallas lowering", file=sys.stderr, flush=True)
-        lowered = jax.jit(fn).lower(params, key)
-        print(f"[worker {proc_id}] pallas compiling", file=sys.stderr, flush=True)
-        compiled = lowered.compile()
-        print(f"[worker {proc_id}] pallas compiled", file=sys.stderr, flush=True)
-        barrier("mcgp_worker_pallas_compiled")
-        print(f"[worker {proc_id}] executing", file=sys.stderr, flush=True)
+    with jax.set_mesh(mesh):
+        compiled = _sharded_probs.lower(
+            params, key, N_SIMS, TOTAL_LAPS, mesh, "sims"
+        ).compile()
+        barrier("mcgp_worker_compiled")
         probs = compiled(params, key)
-    else:
-        with jax.set_mesh(mesh):
-            compiled = _sharded_probs.lower(
-                params, key, N_SIMS, TOTAL_LAPS, mesh, "sims"
-            ).compile()
-            barrier("mcgp_worker_compiled")
-            probs = compiled(params, key)
     # fully-replicated output: every process holds the global value
     local = np.asarray(probs)
     if proc_id == 0:
@@ -128,5 +96,4 @@ def main(
 if __name__ == "__main__":
     main(
         sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
-        sys.argv[5] if len(sys.argv) > 5 else "xla",
     )

@@ -2,7 +2,7 @@
 
 This is an independent reimplementation (NOT a copy) of the behavioral
 contract documented in SURVEY.md §2 for /root/reference/src/simulation.py,
-used as the ground truth for statistical-tolerance tests of the TPU engine.
+used as the ground truth for statistical-tolerance tests of the engine.
 It runs one race at a time with plain Python control flow and a local
 numpy Generator, mirroring every rule:
 
@@ -301,7 +301,7 @@ def run_oracle_monte_carlo(
     team_dnf_rate: np.ndarray,
     n_sims: int,
 ) -> np.ndarray:
-    """Return (D, D) probs[driver, position-1] like the TPU engine."""
+    """Return (D, D) probs[driver, position-1] like the engine."""
     rng = np.random.default_rng(seed)
     d = grid_probs.shape[0]
     counts = np.zeros((d, d), np.int64)

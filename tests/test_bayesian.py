@@ -12,7 +12,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from monte_carlo_gp_tpu.models import bayesian as B
+from monte_carlo_gp.models import bayesian as B
 
 # ------------------------------------------------------------ fixtures
 
@@ -143,7 +143,7 @@ def test_design_refuses_race_only_archive():
     )
     with pytest.raises(ValueError, match="no 'Q' session laps"):
         B.build_quali_design(race_only)
-    from monte_carlo_gp_tpu.models import ml as M
+    from monte_carlo_gp.models import ml as M
 
     with pytest.raises(ValueError, match="no 'Q' session laps"):
         M.build_training_frame(race_only)
@@ -278,8 +278,8 @@ def test_model_refits_untokened_frames(world):
 
 
 def _make_predictor(tmp_path, **kw):
-    from monte_carlo_gp_tpu.data.synthetic import SyntheticBackend
-    from monte_carlo_gp_tpu.models.predictor import F1Predictor
+    from monte_carlo_gp.data.synthetic import SyntheticBackend
+    from monte_carlo_gp.models.predictor import F1Predictor
 
     return F1Predictor(
         cache_dir=tmp_path,

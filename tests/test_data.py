@@ -4,14 +4,14 @@ season extraction, and the 3-level Elo cache priority."""
 import numpy as np
 import pandas as pd
 
-from monte_carlo_gp_tpu.data.elo_cache import load_elo, load_with_priority, save_elo
-from monte_carlo_gp_tpu.data.loader import (
+from monte_carlo_gp.data.elo_cache import load_elo, load_with_priority, save_elo
+from monte_carlo_gp.data.loader import (
     F1DataLoader,
     extract_quali_results,
     extract_race_results,
 )
-from monte_carlo_gp_tpu.data.synthetic import SyntheticBackend
-from monte_carlo_gp_tpu.models.elo import F1EloSystem
+from monte_carlo_gp.data.synthetic import SyntheticBackend
+from monte_carlo_gp.models.elo import F1EloSystem
 
 
 def test_synthetic_deterministic():
@@ -137,7 +137,7 @@ def test_elo_cache_rejects_corrupt(tmp_path):
 def test_predictor_elo_cache_roundtrip(tmp_path):
     """use_elo_cache=True persists ratings after a build and a fresh
     predictor resumes from them without reprocessing seasons."""
-    from monte_carlo_gp_tpu.models.predictor import F1Predictor
+    from monte_carlo_gp.models.predictor import F1Predictor
 
     backend = SyntheticBackend(seed=5, n_events=2)
     p1 = F1Predictor(cache_dir=tmp_path, backend=backend, use_elo_cache=True)
@@ -164,7 +164,7 @@ def test_synthetic_world_is_hash_seed_invariant():
 
     probe = (
         "import numpy as np;"
-        "from monte_carlo_gp_tpu.data.synthetic import SyntheticBackend;"
+        "from monte_carlo_gp.data.synthetic import SyntheticBackend;"
         "b = SyntheticBackend(seed=5, n_events=3);"
         "print(b._skill(2024).tobytes().hex());"
         "print(sorted(b._team_pace.items())[:2])"

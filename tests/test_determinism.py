@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from monte_carlo_gp_tpu.ops.engine import run_monte_carlo
+from monte_carlo_gp.ops.engine import run_monte_carlo
 
 
 def test_same_seed_same_result(std_setup):
@@ -29,7 +29,7 @@ def test_carry_codec_is_bitwise_transparent(std_setup, monkeypatch):
     the _NARROW_MAX_LAPS guard must reproduce the narrowed path's finish
     probabilities BIT FOR BIT. Also exercises the narrow=False branch,
     which no real race reaches (all circuits are <= 120 laps)."""
-    from monte_carlo_gp_tpu.ops import engine as eng
+    from monte_carlo_gp.ops import engine as eng
 
     params, key = std_setup
     narrowed = np.asarray(run_monte_carlo(params, key, 512, 24))
@@ -72,7 +72,7 @@ def test_sharding_invariance(std_setup):
     # computation: jit with output sharding constraint on the batch axis.
     @jax.jit
     def sharded_run(params, key):
-        from monte_carlo_gp_tpu.ops.engine import simulate_races
+        from monte_carlo_gp.ops.engine import simulate_races
 
         pos = simulate_races(params, key, n, 20)
         pos = jax.lax.with_sharding_constraint(

@@ -1,4 +1,4 @@
-"""Statistical-tolerance tests: the TPU engine's finish-order distributions
+"""Statistical-tolerance tests: the engine's finish-order distributions
 must match the sequential NumPy oracle (reference semantics, SURVEY.md §2)
 at fixed seed. Bitwise equality is impossible by construction (different RNG
 stream structure); the contract is distributional equality (BASELINE.md)."""
@@ -8,12 +8,10 @@ import numpy as np
 import pytest
 from scipy import stats
 
-from monte_carlo_gp_tpu.config import make_sim_params
-from monte_carlo_gp_tpu.ops.engine import run_monte_carlo
+from monte_carlo_gp.config import make_sim_params
+from monte_carlo_gp.ops.engine import run_monte_carlo
 
 from oracle.reference_sim import OracleConfig, run_oracle_monte_carlo
-
-ON_TPU = jax.devices()[0].platform == "tpu"
 
 
 def scenario(d=10, seed=5):
@@ -52,34 +50,34 @@ def test_finish_distribution_matches_oracle():
         n_sims=n_oracle,
     )
     params = make_sim_params(pit_loss=21.0, overtake_delta=0.6, **sc)
-    n_tpu = 16384
-    tpu_probs = np.asarray(
-        run_monte_carlo(params, jax.random.PRNGKey(42), n_tpu, laps)
+    n_eng = 16384
+    eng_probs = np.asarray(
+        run_monte_carlo(params, jax.random.PRNGKey(42), n_eng, laps)
     )
 
     # Mean finish position per driver must agree within combined MC error.
     positions = np.arange(1, d + 1)
     mean_o = oracle_probs @ positions
-    mean_t = tpu_probs @ positions
+    mean_t = eng_probs @ positions
     var_o = oracle_probs @ positions**2 - mean_o**2
-    var_t = tpu_probs @ positions**2 - mean_t**2
-    se = np.sqrt(var_o / n_oracle + var_t / n_tpu)
+    var_t = eng_probs @ positions**2 - mean_t**2
+    se = np.sqrt(var_o / n_oracle + var_t / n_eng)
     z = (mean_o - mean_t) / np.maximum(se, 1e-6)
     assert (np.abs(z) < 4.0).all(), (mean_o, mean_t, z)
 
     # Full-distribution agreement (observed 0.020 at these sizes).
-    tv = 0.5 * np.abs(oracle_probs - tpu_probs).sum(axis=1)
+    tv = 0.5 * np.abs(oracle_probs - eng_probs).sum(axis=1)
     assert tv.max() < 0.04, tv
 
     # Rank correlation of win probabilities.
-    rho = stats.spearmanr(oracle_probs[:, 0], tpu_probs[:, 0]).statistic
-    assert rho > 0.8, (oracle_probs[:, 0], tpu_probs[:, 0])
+    rho = stats.spearmanr(oracle_probs[:, 0], eng_probs[:, 0]).statistic
+    assert rho > 0.8, (oracle_probs[:, 0], eng_probs[:, 0])
 
     # Podium probabilities agree within Monte Carlo error.
     pod_o = oracle_probs[:, :3].sum(1)
-    pod_t = tpu_probs[:, :3].sum(1)
+    pod_t = eng_probs[:, :3].sum(1)
     se_pod = np.sqrt(
-        pod_o * (1 - pod_o) / n_oracle + pod_t * (1 - pod_t) / n_tpu
+        pod_o * (1 - pod_o) / n_oracle + pod_t * (1 - pod_t) / n_eng
     )
     z_pod = (pod_o - pod_t) / np.maximum(se_pod, 1e-3)
     assert (np.abs(z_pod) < 4.5).all(), (pod_o, pod_t, z_pod)
@@ -101,12 +99,12 @@ def test_dnf_rate_matches_oracle():
         dnf_rate=sc["dnf_rate"], team_dnf_rate=sc["team_dnf_rate"],
     )
     params = make_sim_params(pit_loss=21.0, overtake_delta=0.6, **sc)
-    tpu_probs = np.asarray(
+    eng_probs = np.asarray(
         run_monte_carlo(params, jax.random.PRNGKey(7), 16384, laps)
     )
     # expected per-race DNF count: lap1 4*0.01 + 24 laps * 0.01 ~ 0.28/driver
     # compare mean finish distributions overall
-    tv = 0.5 * np.abs(oracle_probs - tpu_probs).sum(axis=1)
+    tv = 0.5 * np.abs(oracle_probs - eng_probs).sum(axis=1)
     assert tv.max() < 0.04, tv  # observed 0.017 at 6k/16k sims
 
 
@@ -114,7 +112,7 @@ def test_dnf_rate_matches_oracle():
 def test_native_oracle_matches_python_oracle():
     """The C++ oracle (native/oracle.cpp) and the Python oracle implement
     identical semantics — distributions must agree tightly."""
-    from monte_carlo_gp_tpu.validate.native_oracle import available, run_native_oracle
+    from monte_carlo_gp.validate.native_oracle import available, run_native_oracle
 
     if not available():
         pytest.skip("g++ unavailable")
@@ -145,23 +143,23 @@ def test_engine_matches_native_oracle_high_n():
     sims vs 65k XLA-engine sims. Bound 0.012 = 3x the measured agreement
     (0.0041) — tight enough that dropping a single event-model rule fails it
     (test_mutation_two_compound_rule_is_detected proves this)."""
-    from monte_carlo_gp_tpu.validate.native_oracle import available, run_native_oracle
+    from monte_carlo_gp.validate.native_oracle import available, run_native_oracle
 
     if not available():
         pytest.skip("g++ unavailable")
     d, laps = 10, 30
     sc = scenario(d)
     params = make_sim_params(pit_loss=21.0, overtake_delta=0.6, **sc)
-    n_nat, n_tpu = 400_000, 65_536
+    n_nat, n_eng = 400_000, 65_536
     native = run_native_oracle(params, seed=7, n_sims=n_nat, total_laps=laps)
-    engine = np.asarray(run_monte_carlo(params, jax.random.PRNGKey(7), n_tpu, laps))
+    engine = np.asarray(run_monte_carlo(params, jax.random.PRNGKey(7), n_eng, laps))
 
     positions = np.arange(1, d + 1)
     mean_n = native @ positions
     mean_e = engine @ positions
     var_n = native @ positions**2 - mean_n**2
     var_e = engine @ positions**2 - mean_e**2
-    se = np.sqrt(var_n / n_nat + var_e / n_tpu)
+    se = np.sqrt(var_n / n_nat + var_e / n_eng)
     z = (mean_n - mean_e) / np.maximum(se, 1e-6)
     assert (np.abs(z) < 4.0).all(), (mean_n, mean_e, z)
     tv = 0.5 * np.abs(native - engine).sum(axis=1)
@@ -170,13 +168,11 @@ def test_engine_matches_native_oracle_high_n():
 
 @pytest.mark.slow
 def test_engine_matches_native_oracle_d40():
-    """Large-field distributional anchor (D=40): the size-generic XLA engine
-    is the ONLY engine above the fused kernel's 128-driver ceiling and the
-    fallback for 33..128-driver fields off-TPU, yet every other oracle
-    comparison runs at D<=10 (the D=40 pallas-vs-XLA A/B is TPU-gated).
-    200k native-oracle sims vs 32k engine sims at 40 drivers; bound 0.025 =
-    2.2x the measured agreement (TV max 0.0112, mean-z 2.26)."""
-    from monte_carlo_gp_tpu.validate.native_oracle import available, run_native_oracle
+    """Large-field distributional anchor (D=40): every other CPU-suite
+    oracle comparison runs at D<=10. 200k native-oracle sims vs 32k engine
+    sims at 40 drivers; bound 0.025 = 2.2x the measured agreement (TV max
+    0.0112, mean-z 2.26)."""
+    from monte_carlo_gp.validate.native_oracle import available, run_native_oracle
 
     if not available():
         pytest.skip("g++ unavailable")
@@ -216,18 +212,16 @@ def test_engine_matches_native_oracle_d40():
     assert (np.abs(z) < 4.5).all(), (mean_n, mean_e, z)
 
 
-@pytest.mark.skipif(not ON_TPU, reason="XLA engine at D=80 needs TPU (CPU ~9 sims/s)")
-@pytest.mark.slow
+@pytest.mark.gpu
 def test_engine_matches_native_oracle_d80():
-    """Anchor for the (Q=4, M=128) rank-key tier (65..128-row fields): the
-    XLA engine vs the native C++ oracle of the reference semantics at D=80.
-    Together with the TPU-gated D=80 pallas-vs-XLA A/B this chains the
-    widest packing tier back to the reference event model (native <-> XLA
-    <-> pallas). 100k native sims vs 16k engine sims; bounds scaled from
-    the D=40 anchor for the halved sim budgets. TPU-gated: the engine's
-    (S, D, D) rank intermediates run ~9 sims/s on host CPU at this width
-    (measured), so the CPU suite's anchor stays the D=40 test above."""
-    from monte_carlo_gp_tpu.validate.native_oracle import available, run_native_oracle
+    """Anchor for the widest rank-key packing tier (65..128-row fields, see
+    ops/ranking.rank_by_unique): the engine vs the native C++ oracle of the
+    reference semantics at D=80. 100k native sims vs 16k engine sims;
+    bounds scaled from the D=40 anchor for the halved sim budgets. GPU
+    only: the engine's (S, D, D) rank intermediates run ~9 sims/s on a
+    host CPU at this width, so the CPU suite's anchor stays the D=40 test
+    above."""
+    from monte_carlo_gp.validate.native_oracle import available, run_native_oracle
 
     if not available():
         pytest.skip("g++ unavailable")
@@ -287,7 +281,7 @@ def test_mutation_two_compound_rule_is_detected():
     already in front, never their finishing order — measured effect equals
     the MC noise floor at 400k sims in every scenario tried. No
     finish-distribution test can detect it, regardless of tolerance.)"""
-    from monte_carlo_gp_tpu.validate.native_oracle import (
+    from monte_carlo_gp.validate.native_oracle import (
         MUT_NO_TWO_COMPOUND_RULE,
         available,
         run_native_oracle,
@@ -318,7 +312,7 @@ def test_event_heavy_race_matches_native_oracle():
     """Stress the SC/VSC/red-flag handlers distributionally: with event
     rates cranked up (~10 SC periods per race), the engine must still match
     the native oracle."""
-    from monte_carlo_gp_tpu.validate.native_oracle import available, run_native_oracle
+    from monte_carlo_gp.validate.native_oracle import available, run_native_oracle
 
     if not available():
         pytest.skip("g++ unavailable")
@@ -338,7 +332,7 @@ def test_event_heavy_race_matches_native_oracle():
 @pytest.mark.slow
 def test_wet_race_matches_native_oracle():
     """Damp track: intermediate tires, no two-compound rule, wet pit picks."""
-    from monte_carlo_gp_tpu.validate.native_oracle import available, run_native_oracle
+    from monte_carlo_gp.validate.native_oracle import available, run_native_oracle
 
     if not available():
         pytest.skip("g++ unavailable")
@@ -360,7 +354,7 @@ def test_exact_default_deg_matches_native_oracle():
     high-degradation pit adjustment — comparisons must happen at f32
     precision in engine and oracles alike (this mismatch once skewed mean
     finishes by ~3 positions)."""
-    from monte_carlo_gp_tpu.validate.native_oracle import available, run_native_oracle
+    from monte_carlo_gp.validate.native_oracle import available, run_native_oracle
 
     if not available():
         pytest.skip("g++ unavailable")

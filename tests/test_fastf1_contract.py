@@ -1,7 +1,7 @@
 """Contract tests for the FastF1 network backend with a stubbed `fastf1`.
 
 fastf1 is not installed in CI, so `FastF1Backend`
-(monte_carlo_gp_tpu/data/loader.py) — the production data path mapping the
+(monte_carlo_gp/data/loader.py) — the production data path mapping the
 reference's `F1DataLoader` (reference data_loader.py:15-33, 132-156) — never
 executes in any other test. These tests stub the `fastf1` module with fake
 sessions returning Timedelta-typed frames (the real library's dtypes) and
@@ -27,7 +27,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from monte_carlo_gp_tpu.data.loader import _LAP_COLUMNS, F1DataLoader
+from monte_carlo_gp.data.loader import _LAP_COLUMNS, F1DataLoader
 
 
 class FakeSession:
@@ -93,7 +93,7 @@ def backend_for(monkeypatch, tmp_path):
     def build(sessions, schedule=None):
         fake = make_fake_fastf1(sessions, schedule)
         monkeypatch.setitem(sys.modules, "fastf1", fake)
-        from monte_carlo_gp_tpu.data.loader import FastF1Backend
+        from monte_carlo_gp.data.loader import FastF1Backend
 
         backend = FastF1Backend(str(tmp_path / "ff1"))
         assert fake.cache_dirs == [str(tmp_path / "ff1")]
@@ -158,7 +158,7 @@ def test_load_laps_feeds_quali_extraction(backend_for):
     """End-to-end: the normalized frame drives extract_quali_results the
     same way the reference's _extract_quali_results consumes raw fastf1
     laps (reference data_loader.py:86-114)."""
-    from monte_carlo_gp_tpu.data.loader import extract_quali_results
+    from monte_carlo_gp.data.loader import extract_quali_results
 
     backend, _ = backend_for({(2024, "Bahrain", "Q"): FakeSession(laps=laps_frame())})
     out = backend.load_laps(2024, "Bahrain", "Q")
@@ -527,7 +527,7 @@ def test_load_results_passes_nan_rows_through(backend_for):
 
 
 def test_actual_results_drop_nan_positions(backend_for, tmp_path):
-    from monte_carlo_gp_tpu.validate.backtest import get_actual_results
+    from monte_carlo_gp.validate.backtest import get_actual_results
 
     schedule = pd.DataFrame(
         {
@@ -559,7 +559,7 @@ def test_feature_archive_tolerates_nan_result_rows(backend_for, tmp_path):
     """The feature engine's per-event aggregates must survive NaN
     grid/finish rows (pandas NaN-skipping means they simply don't
     contribute to overtake/defense rates)."""
-    from monte_carlo_gp_tpu.models.features import F1FeatureEngine
+    from monte_carlo_gp.models.features import F1FeatureEngine
 
     schedule = pd.DataFrame(
         {
@@ -585,7 +585,7 @@ def test_feature_archive_tolerates_nan_result_rows(backend_for, tmp_path):
     eng = F1FeatureEngine(loader)
     eng.load_historical_data([2021])
     assert not eng.race_results.empty
-    from monte_carlo_gp_tpu.data.loader import DEFAULT_WEATHER
+    from monte_carlo_gp.data.loader import DEFAULT_WEATHER
 
     feats = eng.calculate_race_features(
         "VER", circuit="Belgian Grand Prix", weather=dict(DEFAULT_WEATHER))
@@ -685,7 +685,7 @@ def test_build_cache_offline_predict_roundtrip(monkeypatch, tmp_path):
     fake = make_fake_fastf1(sessions)
     fake.get_event_schedule = lambda season: schedules[season]
     monkeypatch.setitem(sys.modules, "fastf1", fake)
-    from monte_carlo_gp_tpu.data.loader import FastF1Backend
+    from monte_carlo_gp.data.loader import FastF1Backend
 
     backend = FastF1Backend(str(tmp_path / "ff1"))
     cache_dir = tmp_path / "cache"
@@ -693,7 +693,7 @@ def test_build_cache_offline_predict_roundtrip(monkeypatch, tmp_path):
     written = loader.build_cache([2023, 2024])
     assert written > 0
 
-    from monte_carlo_gp_tpu.models.predictor import F1Predictor
+    from monte_carlo_gp.models.predictor import F1Predictor
 
     predictor = F1Predictor(cache_dir=cache_dir, offline=True, engine="xla")
     assert predictor.data_loader.backend is None  # truly offline

@@ -5,9 +5,9 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from monte_carlo_gp_tpu.data.loader import F1DataLoader
-from monte_carlo_gp_tpu.data.synthetic import SyntheticBackend
-from monte_carlo_gp_tpu.models.features import F1FeatureEngine
+from monte_carlo_gp.data.loader import F1DataLoader
+from monte_carlo_gp.data.synthetic import SyntheticBackend
+from monte_carlo_gp.models.features import F1FeatureEngine
 
 
 def make_engine(laps=None, results=None):
@@ -248,7 +248,7 @@ def test_event_partial_memo_matches_fresh(tmp_path):
     the SAME aggregate tables and features as a fresh engine built directly
     at the final clock (bitwise for per-event aggregates; cross-event sums
     identical here because both sides accumulate per event)."""
-    from monte_carlo_gp_tpu.validate.backtest import _pin, _race_cutoffs, get_races
+    from monte_carlo_gp.validate.backtest import _pin, _race_cutoffs, get_races
 
     backend = SyntheticBackend(seed=3, n_events=6)
     loader = F1DataLoader(cache_dir=tmp_path / "a", backend=backend)

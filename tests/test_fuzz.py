@@ -6,8 +6,8 @@ import jax
 import numpy as np
 import pytest
 
-from monte_carlo_gp_tpu.config import make_sim_params
-from monte_carlo_gp_tpu.ops.engine import run_monte_carlo
+from monte_carlo_gp.config import make_sim_params
+from monte_carlo_gp.ops.engine import run_monte_carlo
 
 
 def random_params(rng: np.random.Generator):

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 from scipy import stats
 
-from monte_carlo_gp_tpu.ops.grid_sampling import sample_grid
+from monte_carlo_gp.ops.grid_sampling import sample_grid
 
 
 def test_grids_are_permutations():

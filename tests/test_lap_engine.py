@@ -9,9 +9,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from monte_carlo_gp_tpu import config as cfg
-from monte_carlo_gp_tpu.config import make_sim_params
-from monte_carlo_gp_tpu.ops.lap_engine import classify, init_cars, lap_step
+from monte_carlo_gp import config as cfg
+from monte_carlo_gp.config import make_sim_params
+from monte_carlo_gp.ops.lap_engine import classify, init_cars, lap_step
 
 KEY = jax.random.PRNGKey(123)
 
@@ -528,13 +528,13 @@ def test_overtake_poison_fold_matches_masked_form():
     """The DNF/DRS poison fold in `_overtakes` (three scatters per pass
     instead of four) must be bit-identical to the explicit-mask form it
     replaced, across random states with retired cars and DRS holders."""
-    from monte_carlo_gp_tpu.ops import rng as _rng
-    from monte_carlo_gp_tpu.ops.lap_engine import (
+    from monte_carlo_gp.ops import rng as _rng
+    from monte_carlo_gp.ops.lap_engine import (
         OVERTAKE_PASSES,
         OVERTAKE_RESET_GAP,
         _overtakes,
     )
-    from monte_carlo_gp_tpu.ops.ranking import (
+    from monte_carlo_gp.ops.ranking import (
         gather_at_rank,
         rank_by_unique,
         scatter_by_rank,

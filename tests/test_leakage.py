@@ -19,9 +19,9 @@ race's event date during backtests (validate/backtest.py `_pin`).
 import numpy as np
 import pytest
 
-from monte_carlo_gp_tpu.data.synthetic import SyntheticBackend
-from monte_carlo_gp_tpu.models.predictor import F1Predictor
-from monte_carlo_gp_tpu.validate.backtest import backtest_model
+from monte_carlo_gp.data.synthetic import SyntheticBackend
+from monte_carlo_gp.models.predictor import F1Predictor
+from monte_carlo_gp.validate.backtest import backtest_model
 
 N_EVENTS = 3
 SEASON = 2024
@@ -72,7 +72,7 @@ def test_backtest_elo_walk_forward_no_leak_no_double_count(tmp_path):
 
     # Control: what ratings SHOULD be at each race under strict walk-forward:
     # previous season fully built, then only races < k applied as actuals.
-    from monte_carlo_gp_tpu.validate.backtest import (
+    from monte_carlo_gp.validate.backtest import (
         _pin,
         _race_cutoffs,
         get_actual_results,
@@ -114,7 +114,7 @@ def test_backtest_feature_archive_no_leak(tmp_path):
         verbose=False,
     )
     assert len(archive_snaps) == N_EVENTS
-    from monte_carlo_gp_tpu.validate.backtest import get_races
+    from monte_carlo_gp.validate.backtest import get_races
 
     control = F1Predictor(
         cache_dir=tmp_path, backend=SyntheticBackend(seed=5, n_events=N_EVENTS)
@@ -138,8 +138,8 @@ def test_dateless_events_cannot_leak_under_pinned_clock(tmp_path):
     results into every race's Elo/feature inputs."""
     import pandas as pd
 
-    from monte_carlo_gp_tpu.data.loader import F1DataLoader
-    from monte_carlo_gp_tpu.validate.backtest import _race_cutoffs
+    from monte_carlo_gp.data.loader import F1DataLoader
+    from monte_carlo_gp.validate.backtest import _race_cutoffs
 
     class Sched:
         def __init__(self, events):

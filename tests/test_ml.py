@@ -12,8 +12,8 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from monte_carlo_gp_tpu.models import ml as M
-from tests.test_bayesian import DRIVERS, TEAM_OF, _world
+from monte_carlo_gp.models import ml as M
+from test_bayesian import DRIVERS, TEAM_OF, _world
 
 # ------------------------------------------------------------ training frame
 
@@ -165,8 +165,8 @@ def test_fit_cached_per_archive_token():
 
 
 def test_predictor_gbm_path_end_to_end(tmp_path):
-    from monte_carlo_gp_tpu.data.synthetic import SyntheticBackend
-    from monte_carlo_gp_tpu.models.predictor import F1Predictor
+    from monte_carlo_gp.data.synthetic import SyntheticBackend
+    from monte_carlo_gp.models.predictor import F1Predictor
 
     p = F1Predictor(
         cache_dir=tmp_path,
@@ -188,8 +188,8 @@ def test_short_race_name_resolves_to_archive_circuit(tmp_path):
     as the schedule's EventName: the predictor resolves the name before
     the alt model's exact-match circuit lookup (a silent signal drop
     otherwise — the archive stores resolved EventNames)."""
-    from monte_carlo_gp_tpu.data.synthetic import SyntheticBackend
-    from monte_carlo_gp_tpu.models.predictor import F1Predictor
+    from monte_carlo_gp.data.synthetic import SyntheticBackend
+    from monte_carlo_gp.models.predictor import F1Predictor
 
     p = F1Predictor(
         cache_dir=tmp_path,

@@ -6,8 +6,8 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from monte_carlo_gp_tpu.data.synthetic import SyntheticBackend
-from monte_carlo_gp_tpu.models.predictor import F1Predictor
+from monte_carlo_gp.data.synthetic import SyntheticBackend
+from monte_carlo_gp.models.predictor import F1Predictor
 
 
 @pytest.fixture(scope="module")
@@ -213,16 +213,24 @@ def test_sprint_weekend_chained_predictions(tmp_path_factory):
         assert abs(sum(r["win_probabilities"].values()) - 1.0) < 1e-3
 
 
-def test_engine_selection_pallas_pads_sims(tmp_path_factory):
-    """engine='pallas' pads non-tile-multiple sim counts; on CPU the kernel
-    runs in XLA lowering... just validate the 'auto'/'xla' plumbing here."""
+@pytest.mark.parametrize("engine", ["auto", "xla"])
+def test_engine_selection(tmp_path_factory, engine):
+    """Both engine names build a predictor on the XLA lap-scan engine, and
+    simulate_plan runs the requested sim count exactly."""
     backend = SyntheticBackend(seed=9, n_events=2)
     p = F1Predictor(cache_dir=tmp_path_factory.mktemp("eng"), backend=backend,
-                    engine="auto")
-    assert p._engine in ("xla", "pallas")
-    with pytest.raises(ValueError):
-        F1Predictor(cache_dir=tmp_path_factory.mktemp("eng2"), backend=backend,
-                    engine="cuda")
+                    engine=engine)
+    plan = p.prepare_weekend(2024, "Bahrain")
+    probs = p.simulate_plan(plan, 100, seed=1)
+    np.testing.assert_allclose(probs.sum(axis=1), 1.0, atol=1e-5)
+    assert p.last_effective_sims == 100
+
+
+@pytest.mark.parametrize("engine", ["pallas", "cuda"])
+def test_engine_selection_refuses_unknown(tmp_path_factory, engine):
+    with pytest.raises(ValueError, match="unknown engine"):
+        F1Predictor(cache_dir=tmp_path_factory.mktemp("eng2"),
+                    backend=SyntheticBackend(seed=9, n_events=2), engine=engine)
 
 
 # ------------------------------------------------- weekend team assignment
@@ -245,7 +253,7 @@ def test_teams_from_fp_prefers_frame_vocabulary():
     teams = F1Predictor._teams_from_fp(fp, ["VER", "HAM", "GHO"])
     assert teams["VER"] == "Red Bull Racing"      # frame wins over cfg
     assert teams["HAM"] == "Scuderia Ferrari"     # 2024 Mercedes? frame wins
-    from monte_carlo_gp_tpu import config as cfg
+    from monte_carlo_gp import config as cfg
     assert teams["GHO"] == cfg.DRIVER_TEAMS.get("GHO")  # NaN row -> fallback
 
 

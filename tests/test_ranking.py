@@ -5,7 +5,7 @@ import numpy as np
 
 import pytest
 
-from monte_carlo_gp_tpu.ops.ranking import (
+from monte_carlo_gp.ops.ranking import (
     gather_at_rank,
     rank_by,
     rank_by_unique,
@@ -41,6 +41,23 @@ def test_rank_by_unique_tiers_match_stable_argsort(d):
     masked = np.where(dnf, np.float32(1e30), x)
     expected = np.argsort(np.argsort(masked, axis=-1, kind="stable"), axis=-1)
     np.testing.assert_array_equal(ranks, expected)
+
+
+@pytest.mark.parametrize("d", [2, 32, 33, 64, 65, 128, 129])
+def test_rank_by_unique_equals_rank_by_at_tier_edges(d):
+    """At each edge of the packing tiers, `rank_by_unique` gives exactly
+    the ranks of the lexicographic `rank_by` over the same keys with DNF'd
+    cars moved last, exact ties arbitrating by index in both."""
+    rng = np.random.default_rng(1000 + d)
+    x = (3000.0 + np.cumsum(rng.uniform(0.05, 2.0, (32, d)), axis=-1)).astype(
+        np.float32
+    )
+    x = rng.permuted(x, axis=-1)
+    x[:4, : d // 2] = x[:4, :1]  # exact ties
+    dnf = rng.uniform(size=(32, d)) < 0.2
+    unique = np.asarray(rank_by_unique(jnp.asarray(x), jnp.asarray(dnf)))
+    reference = np.asarray(rank_by(jnp.asarray(np.where(dnf, np.float32(1e30), x))))
+    np.testing.assert_array_equal(unique, reference)
 
 
 def test_rank_tie_break_by_index():

@@ -1,6 +1,6 @@
 """A/B validation against the ACTUAL reference implementation.
 
-Every other correctness test in this suite compares the TPU engines against
+Every other correctness test in this suite compares the engine against
 builder-written oracles (tests/oracle/*, native/oracle.cpp) — a shared
 misreading of the reference would pass all of them. These tests close that
 loophole by importing the genuine reference code from /root/reference
@@ -142,7 +142,7 @@ def _run_reference(
     import os
     import subprocess
 
-    from monte_carlo_gp_tpu import config as cfg
+    from monte_carlo_gp import config as cfg
 
     d = len(sc["base_pace"])
     assert n_sims % n_procs == 0, (n_sims, n_procs)
@@ -227,9 +227,9 @@ def test_reference_engine_vs_xla_and_native_20drv_57laps(
     """The headline A/B: full-size race, >=20k genuine reference sims."""
     import jax
 
-    from monte_carlo_gp_tpu.config import make_sim_params
-    from monte_carlo_gp_tpu.ops.engine import run_monte_carlo
-    from monte_carlo_gp_tpu.validate.native_oracle import available, run_native_oracle
+    from monte_carlo_gp.config import make_sim_params
+    from monte_carlo_gp.ops.engine import run_monte_carlo
+    from monte_carlo_gp.validate.native_oracle import available, run_native_oracle
 
     d, laps = 20, 57
     sc = _scenario(d)
@@ -257,10 +257,9 @@ def test_reference_engine_vs_native_tight(ref, matching_hashseed, tmp_path):
     observed max per-driver TV 0.0104 (mean 0.0061); the 0.015 bound is
     <=2x the per-cell floor and ~1.5x the observed max, so the genuine
     reference itself now pins the event model at the resolution the oracle
-    tests use. (The fused kernel inherits the link
-    transitively: native<->pallas is tested at 262k/262k on TPU.)"""
-    from monte_carlo_gp_tpu.config import make_sim_params
-    from monte_carlo_gp_tpu.validate.native_oracle import available, run_native_oracle
+    tests use."""
+    from monte_carlo_gp.config import make_sim_params
+    from monte_carlo_gp.validate.native_oracle import available, run_native_oracle
 
     if not available():
         pytest.skip("native oracle unavailable (g++)")
@@ -278,45 +277,11 @@ def test_reference_engine_vs_native_tight(ref, matching_hashseed, tmp_path):
     _compare(ref_probs, native, n_ref, n_nat, tv_bound=0.015)
 
 
-def test_reference_engine_vs_pallas_on_tpu(ref, matching_hashseed, tmp_path):
-    """Direct genuine-reference <-> fused-kernel link at TIGHT resolution
-    (the same methodology as the XLA/native tight test above): 40,960 REAL
-    reference sims (8 sharded hash-pinned subprocesses) vs 393,216 Pallas
-    sims at the full 20-driver 57-lap configuration. Combined MC noise floor
-    is sqrt(1/40960 + 1/393216) ~ 0.0052 per cell, so the 0.015 bound pins
-    the flagship kernel to the genuine article directly — the builder-
-    written C++ oracle is no longer the fused engine's only tight anchor.
-    TPU-only (interpreter PRNG returns zeros); run via
-    MCGP_TEST_TPU=1 pytest -k pallas."""
-    import jax
-
-    if jax.devices()[0].platform != "tpu":
-        pytest.skip("hardware PRNG requires real TPU")
-    from monte_carlo_gp_tpu.config import make_sim_params
-    from monte_carlo_gp_tpu.ops.pallas_engine import run_monte_carlo_pallas
-
-    d, laps = 20, 57
-    sc = _scenario(d)
-    n_ref = 40_960
-    ref_probs = _run_reference(
-        sc, laps, n_ref, 42, matching_hashseed, tmp_path, n_procs=8
-    )
-    params = make_sim_params(pit_loss=21.0, overtake_delta=0.6, **sc)
-    n_pal = 393_216
-    pallas = np.asarray(
-        run_monte_carlo_pallas(params, jax.random.PRNGKey(1), n_pal, laps)
-    )
-    tv = 0.5 * np.abs(ref_probs - pallas).sum(axis=1)
-    print(f"[pallas tight A/B] max per-driver TV: {tv.max():.4f} "
-          f"(mean {tv.mean():.4f})")
-    _compare(ref_probs, pallas, n_ref, n_pal, tv_bound=0.015)
-
-
 def _stress_native(sc, params, ref_probs, n_ref, laps):
     """Stress-scenario tight side: 131,072 native-oracle sims against the
     sharded 24k genuine-reference run (combined noise ~0.007 per cell at
     d=10; 0.025 is ~2.5x the observed max TV)."""
-    from monte_carlo_gp_tpu.validate.native_oracle import available, run_native_oracle
+    from monte_carlo_gp.validate.native_oracle import available, run_native_oracle
 
     if not available():
         return
@@ -330,8 +295,8 @@ def test_reference_engine_event_heavy(ref, matching_hashseed, tmp_path):
     """SC/VSC/red-flag handlers dominate: ~4 events per race."""
     import jax
 
-    from monte_carlo_gp_tpu.config import make_sim_params
-    from monte_carlo_gp_tpu.ops.engine import run_monte_carlo
+    from monte_carlo_gp.config import make_sim_params
+    from monte_carlo_gp.ops.engine import run_monte_carlo
 
     d, laps = 10, 30
     sc = _scenario(d, seed=9)
@@ -354,8 +319,8 @@ def test_reference_engine_damp(ref, matching_hashseed, tmp_path):
     """Intermediate tires, wet pit picks, no two-compound rule."""
     import jax
 
-    from monte_carlo_gp_tpu.config import make_sim_params
-    from monte_carlo_gp_tpu.ops.engine import run_monte_carlo
+    from monte_carlo_gp.config import make_sim_params
+    from monte_carlo_gp.ops.engine import run_monte_carlo
 
     d, laps = 10, 30
     sc = _scenario(d, seed=13)
@@ -377,8 +342,8 @@ def test_reference_engine_full_wet(ref, matching_hashseed, tmp_path):
     """Full-wet: WET compound start, wet pit picks, fresh tires for all."""
     import jax
 
-    from monte_carlo_gp_tpu.config import make_sim_params
-    from monte_carlo_gp_tpu.ops.engine import run_monte_carlo
+    from monte_carlo_gp.config import make_sim_params
+    from monte_carlo_gp.ops.engine import run_monte_carlo
 
     d, laps = 10, 30
     sc = _scenario(d, seed=21)
@@ -422,7 +387,7 @@ def _random_events(seed, n_events=60):
 
 
 def test_reference_elo_exact_replay(ref):
-    from monte_carlo_gp_tpu.models.elo import F1EloSystem
+    from monte_carlo_gp.models.elo import F1EloSystem
 
     ref_sys = ref.elo.F1EloSystem()
     ours = F1EloSystem()
@@ -444,7 +409,7 @@ def test_reference_elo_exact_replay(ref):
         for disc in ("quali", "race"):
             r_ref = ref_sys.get_rating(name, disc)
             r_ours = ours.get_rating(name, disc)
-            # ours accumulates in float32 (TPU dtype); 60 events of K<=48
+            # ours accumulates in float32; 60 events of K<=48
             # deltas bound the rounding drift far below any formula error.
             assert abs(r_ref - r_ours) < 0.05, (name, disc, r_ref, r_ours)
 
@@ -457,7 +422,7 @@ def test_reference_elo_exact_replay(ref):
 
 def test_reference_elo_single_event_tight(ref):
     """One event, fresh ratings: agreement limited only by f32 rounding."""
-    from monte_carlo_gp_tpu.models.elo import F1EloSystem
+    from monte_carlo_gp.models.elo import F1EloSystem
 
     ref_sys = ref.elo.F1EloSystem()
     ours = F1EloSystem()
@@ -488,9 +453,9 @@ def test_reference_elo_ordered_list_raises_like_backtest(ref):
 def archives(tmp_path_factory):
     """One shared synthetic archive (2 seasons, includes wet events), loaded
     through OUR loader, then injected verbatim into both feature engines."""
-    from monte_carlo_gp_tpu.data.loader import F1DataLoader
-    from monte_carlo_gp_tpu.data.synthetic import SyntheticBackend
-    from monte_carlo_gp_tpu.models.features import F1FeatureEngine
+    from monte_carlo_gp.data.loader import F1DataLoader
+    from monte_carlo_gp.data.synthetic import SyntheticBackend
+    from monte_carlo_gp.models.features import F1FeatureEngine
 
     loader = F1DataLoader(
         cache_dir=tmp_path_factory.mktemp("ab_cache"),
@@ -510,7 +475,7 @@ def test_reference_features_field_by_field(ref, archives):
     ref_engine.laps = ours.laps.copy()
     ref_engine.race_results = ours.race_results.copy()
 
-    from monte_carlo_gp_tpu import config as cfg
+    from monte_carlo_gp import config as cfg
 
     drivers = list(cfg.DRIVER_TEAMS.keys())
     weathers = [
@@ -540,7 +505,7 @@ def test_default_mode_divergences_are_exactly_the_documented_ones(ref, archives)
     """In default (non-compat) mode exactly three quali features may diverge
     from the reference — the documented deliberate fixes — and all race
     features must still match."""
-    from monte_carlo_gp_tpu.models.features import F1FeatureEngine
+    from monte_carlo_gp.models.features import F1FeatureEngine
 
     compat = archives
     default = F1FeatureEngine(compat.loader)
@@ -553,7 +518,7 @@ def test_default_mode_divergences_are_exactly_the_documented_ones(ref, archives)
 
     fixed_keys = {"avg_gap_to_pole_pct", "teammate_delta", "circuit_affinity"}
     saw_divergence = set()
-    from monte_carlo_gp_tpu import config as cfg
+    from monte_carlo_gp import config as cfg
 
     for driver in list(cfg.DRIVER_TEAMS.keys())[:8]:
         q_ref = ref_engine.calculate_quali_features(driver, "Bahrain")
@@ -601,11 +566,11 @@ def test_reference_predictor_end_to_end(ref, tmp_path_factory):
 
     import pandas as pd
 
-    from monte_carlo_gp_tpu import config as cfg
-    from monte_carlo_gp_tpu.data.loader import F1DataLoader as OurLoader
-    from monte_carlo_gp_tpu.data.synthetic import SyntheticBackend
-    from monte_carlo_gp_tpu.models.features import F1FeatureEngine as OurFeatures
-    from monte_carlo_gp_tpu.models.predictor import F1Predictor as OurPredictor
+    from monte_carlo_gp import config as cfg
+    from monte_carlo_gp.data.loader import F1DataLoader as OurLoader
+    from monte_carlo_gp.data.synthetic import SyntheticBackend
+    from monte_carlo_gp.models.features import F1FeatureEngine as OurFeatures
+    from monte_carlo_gp.models.predictor import F1Predictor as OurPredictor
 
     import src.predictor as ref_predictor_mod
 
@@ -796,12 +761,12 @@ def test_reference_backtest_model_end_to_end(ref, tmp_path_factory):
     import src.predictor as ref_predictor_mod
     import src.validation as ref_val
 
-    from monte_carlo_gp_tpu.data.loader import F1DataLoader as OurLoader
-    from monte_carlo_gp_tpu.data.synthetic import SyntheticBackend
-    from monte_carlo_gp_tpu.models.features import F1FeatureEngine as OurFeatures
-    from monte_carlo_gp_tpu.models.predictor import F1Predictor as OurPredictor
-    from monte_carlo_gp_tpu.validate import backtest as our_backtest
-    from monte_carlo_gp_tpu.validate import metrics as our_metrics
+    from monte_carlo_gp.data.loader import F1DataLoader as OurLoader
+    from monte_carlo_gp.data.synthetic import SyntheticBackend
+    from monte_carlo_gp.models.features import F1FeatureEngine as OurFeatures
+    from monte_carlo_gp.models.predictor import F1Predictor as OurPredictor
+    from monte_carlo_gp.validate import backtest as our_backtest
+    from monte_carlo_gp.validate import metrics as our_metrics
 
     # 6 events (Bahrain .. Miami) keep both sprint rounds (China, Miami);
     # the wet path is driven by the predictor A/B above (Belgium, damp).

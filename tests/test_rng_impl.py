@@ -2,35 +2,53 @@
 
 rbg keeps the engine's draw-tree structure (fold_in stream derivation is
 threefry over the key data either way) but routes bulk bit generation to the
-XLA RngBitGenerator op — hardware-accelerated on TPU, where the software
-threefry costs the XLA engine ~300 (D,S)-op equivalents per lap
-(docs/KERNEL_DESIGN.md). Contract under test: the repo's bitwise
-determinism + sharding-invariance guarantees (test_determinism.py) must hold
-for rbg exactly as for the default threefry; the two impls' values differ
-(documented in ops/rng.py) but must agree distributionally.
+XLA RngBitGenerator op instead of the software threefry rounds. Contract
+under test: the repo's bitwise determinism + sharding-invariance guarantees
+(test_determinism.py) must hold for rbg exactly as for the default
+threefry; the two impls' values differ (documented in ops/rng.py) but must
+agree distributionally.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from monte_carlo_gp_tpu.ops import rng
-from monte_carlo_gp_tpu.ops.engine import run_monte_carlo
+from monte_carlo_gp.ops import rng
+from monte_carlo_gp.ops.engine import run_monte_carlo
 
 
 def test_default_impl_resolution(monkeypatch):
-    """Default bit source: MCGP_RNG_IMPL wins; else rbg on TPU, threefry
-    elsewhere (this suite runs on the forced-CPU mesh, so threefry here).
-    The Pallas flagship already uses the on-core hardware PRNG on TPU with
-    the same stability semantics, so the platform-aware default keeps the
-    two engines' contracts aligned (ops/rng.py module comment)."""
-    assert jax.default_backend() == "cpu"
+    """Default bit source: MCGP_RNG_IMPL wins; else threefry2x32."""
     monkeypatch.delenv("MCGP_RNG_IMPL", raising=False)
     assert rng.default_impl() == "threefry2x32"
     # Read at call time: a post-import env change takes effect immediately.
     monkeypatch.setenv("MCGP_RNG_IMPL", "rbg")
     assert rng.default_impl() == "rbg"
+
+
+@pytest.mark.parametrize("env, impl", [
+    (None, "threefry2x32"),
+    ("", "threefry2x32"),
+    ("threefry2x32", "threefry2x32"),
+    ("rbg", "rbg"),
+    ("unsafe_rbg", "unsafe_rbg"),
+])
+def test_default_impl_env_override(monkeypatch, env, impl):
+    if env is None:
+        monkeypatch.delenv("MCGP_RNG_IMPL", raising=False)
+    else:
+        monkeypatch.setenv("MCGP_RNG_IMPL", env)
+    assert rng.default_impl() == impl
+
+
+@pytest.mark.parametrize("backend", ["cpu", "gpu", "metal"])
+def test_default_impl_ignores_the_platform(monkeypatch, backend):
+    """The default is threefry2x32 whatever the backend: no platform branch."""
+    monkeypatch.delenv("MCGP_RNG_IMPL", raising=False)
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    assert rng.default_impl() == "threefry2x32"
 
 
 def test_engine_key_conversion():
@@ -82,7 +100,7 @@ def test_rbg_sharding_invariance(std_setup):
 
     @jax.jit
     def sharded_run(params, key):
-        from monte_carlo_gp_tpu.ops.engine import _histogram, simulate_races
+        from monte_carlo_gp.ops.engine import _histogram, simulate_races
 
         pos = simulate_races(params, key, n, 20, rng_impl="rbg")
         pos = jax.lax.with_sharding_constraint(

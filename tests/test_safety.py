@@ -10,11 +10,11 @@ implementation of that roadmap (models/safety.py, F1EloSystem.initialize_rookie)
 import numpy as np
 import pytest
 
-from monte_carlo_gp_tpu import config as cfg
-from monte_carlo_gp_tpu.data.synthetic import SyntheticBackend
-from monte_carlo_gp_tpu.models.elo import F1EloSystem
-from monte_carlo_gp_tpu.models.predictor import F1Predictor
-from monte_carlo_gp_tpu.models.safety import (
+from monte_carlo_gp import config as cfg
+from monte_carlo_gp.data.synthetic import SyntheticBackend
+from monte_carlo_gp.models.elo import F1EloSystem
+from monte_carlo_gp.models.predictor import F1Predictor
+from monte_carlo_gp.models.safety import (
     InsufficientDataError,
     PredictionError,
     generate_fallback_predictions,

@@ -6,9 +6,9 @@ import jax
 import numpy as np
 import pytest
 
-from monte_carlo_gp_tpu.ops.engine import run_monte_carlo, simulate_races
-from monte_carlo_gp_tpu.parallel.mesh import make_mesh, sharded_monte_carlo
-from monte_carlo_gp_tpu.parallel.sharded import simulate_season_sharded, stack_params
+from monte_carlo_gp.ops.engine import run_monte_carlo, simulate_races
+from monte_carlo_gp.parallel.mesh import make_mesh, sharded_monte_carlo
+from monte_carlo_gp.parallel.sharded import simulate_season_sharded, stack_params
 
 
 def test_make_mesh_shapes():

@@ -7,10 +7,10 @@ cannot touch the quali model), and the sweep is deterministic."""
 import numpy as np
 import pytest
 
-from monte_carlo_gp_tpu.config import make_sim_params
-from monte_carlo_gp_tpu.data.synthetic import SyntheticBackend
-from monte_carlo_gp_tpu.models.predictor import F1Predictor
-from monte_carlo_gp_tpu.validate.tune import (
+from monte_carlo_gp.config import make_sim_params
+from monte_carlo_gp.data.synthetic import SyntheticBackend
+from monte_carlo_gp.models.predictor import F1Predictor
+from monte_carlo_gp.validate.tune import (
     apply_overrides,
     expand_grid,
     sweep_backtest,
@@ -133,7 +133,7 @@ def test_sweep_pole_brier_invariant_across_configs(sweep_out):
 def test_sweep_default_matches_batched_backtest(tmp_path, sweep_out):
     """The un-overridden config IS backtest_model_batched: same prep, same
     fold_in key chain, same engine -> exactly equal metrics."""
-    from monte_carlo_gp_tpu.validate.backtest import backtest_model_batched
+    from monte_carlo_gp.validate.backtest import backtest_model_batched
 
     bat = backtest_model_batched(
         _factory(tmp_path), [2024], seed=3, n_simulations=512,

@@ -3,8 +3,8 @@
 import json
 import logging
 
-from monte_carlo_gp_tpu.utils.logging import get_logger, log_event
-from monte_carlo_gp_tpu.utils.profiling import Phase, phase_report, sims_per_second
+from monte_carlo_gp.utils.logging import get_logger, log_event
+from monte_carlo_gp.utils.profiling import Phase, phase_report, sims_per_second
 
 
 def test_phase_timers_accumulate():
@@ -38,13 +38,13 @@ def test_log_event_plain_and_json(monkeypatch, caplog):
     assert payload["event"] == "bench" and payload["value"] == 42
 
 
-# -- precompile (persistent-cache pre-seeding, VERDICT r4 #8) ----------------
+# -- precompile (persistent-cache pre-seeding) --------------------------------
 
 
 def test_bucket_specs_cover_calendar():
-    from monte_carlo_gp_tpu import config as cfg
-    from monte_carlo_gp_tpu.models.predictor import _lap_bucket
-    from monte_carlo_gp_tpu.precompile import bucket_specs
+    from monte_carlo_gp import config as cfg
+    from monte_carlo_gp.models.predictor import _lap_bucket
+    from monte_carlo_gp.precompile import bucket_specs
 
     specs = bucket_specs()
     buckets = {b for b, _ in specs}
@@ -66,7 +66,25 @@ def test_bucket_specs_cover_calendar():
 def test_precompile_one_bucket_in_process():
     """compile_one drives the production simulate_plan dispatch with a
     dummy plan: it must compile+run without a real predictor."""
-    from monte_carlo_gp_tpu.precompile import compile_one
+    from monte_carlo_gp.precompile import compile_one
 
-    dt = compile_one(12, 64, "xla", n_drivers=6)
+    dt = compile_one(12, 64, n_drivers=6)
     assert dt > 0
+
+
+def test_precompile_spawns_no_subprocess(monkeypatch):
+    """The whole build step compiles in this one process: a second JAX
+    process would need the device this one holds."""
+    import multiprocessing
+    import subprocess
+
+    import monte_carlo_gp.precompile as pc
+
+    def forbidden(*a, **k):
+        raise AssertionError("precompile started another process")
+
+    monkeypatch.setattr(subprocess, "Popen", forbidden)
+    monkeypatch.setattr(subprocess, "run", forbidden)
+    monkeypatch.setattr(multiprocessing, "Process", forbidden)
+    monkeypatch.setattr(pc, "bucket_specs", lambda: [(16, 12)])
+    assert pc.precompile(n_simulations=64, n_drivers=4) == 1

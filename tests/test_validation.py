@@ -5,15 +5,15 @@ import json
 
 import pytest
 
-from monte_carlo_gp_tpu.data.loader import F1DataLoader
-from monte_carlo_gp_tpu.data.synthetic import SyntheticBackend
-from monte_carlo_gp_tpu.models.predictor import F1Predictor
-from monte_carlo_gp_tpu.validate.backtest import (
+from monte_carlo_gp.data.loader import F1DataLoader
+from monte_carlo_gp.data.synthetic import SyntheticBackend
+from monte_carlo_gp.models.predictor import F1Predictor
+from monte_carlo_gp.validate.backtest import (
     backtest_model,
     get_actual_results,
     get_races,
 )
-from monte_carlo_gp_tpu.validate.metrics import (
+from monte_carlo_gp.validate.metrics import (
     brier_score,
     calibration_analysis,
     podium_accuracy,
@@ -138,7 +138,7 @@ def test_reference_compat_elo_noop_differs(tmp_path):
 def test_batched_backtest_matches_sequential_scores(tmp_path):
     """The batched (sharded season) backtest must produce Brier scores
     statistically consistent with the sequential walk-forward harness."""
-    from monte_carlo_gp_tpu.validate.backtest import backtest_model_batched
+    from monte_carlo_gp.validate.backtest import backtest_model_batched
 
     seq = backtest_model(
         _factory(tmp_path, n_events=3), [2024], seed=3, n_simulations=1024,
@@ -153,24 +153,6 @@ def test_batched_backtest_matches_sequential_scores(tmp_path):
     assert bat["pole_brier"] == pytest.approx(seq["pole_brier"], abs=1e-9)
     # win Brier differs only by Monte Carlo noise
     assert bat["win_brier"] == pytest.approx(seq["win_brier"], abs=0.02)
-
-
-@pytest.mark.slow
-def test_batched_backtest_pallas_season_structure(tmp_path):
-    """engine='pallas' batched mode routes the whole season through ONE
-    race-batched fused-kernel launch. Off-TPU that runs the interpreter
-    (zero PRNG — structure only): valid per-race simplexes, n_races, and
-    the tile-rounded effective sim count must come back."""
-    from monte_carlo_gp_tpu.validate.backtest import backtest_model_batched
-
-    res = backtest_model_batched(
-        _factory(tmp_path, n_events=3), [2024], seed=4, n_simulations=300,
-        engine="pallas", verbose=False,
-    )
-    assert res["n_races"] == 3
-    for pred in [res]:
-        assert 0.0 <= pred["pole_brier"] <= 1.0
-        assert 0.0 <= pred["win_brier"] <= 1.0
 
 
 @pytest.mark.slow
@@ -196,7 +178,7 @@ def test_synthetic_ground_truth_accuracy_gate(tmp_path):
     backend = SyntheticBackend(seed=5, n_events=n_events)
     predictor = F1Predictor(cache_dir=tmp_path, backend=backend)
     loader = predictor.data_loader
-    from monte_carlo_gp_tpu.validate.backtest import _pin, _race_cutoffs
+    from monte_carlo_gp.validate.backtest import _pin, _race_cutoffs
 
     races = get_races(loader, 2024)
     cutoffs = _race_cutoffs(loader, 2024)
@@ -353,57 +335,19 @@ def _widening_factory(tmp_path, widths, n_events=2):
 
 
 @pytest.mark.slow
-def test_batched_backtest_mixed_field_40_uses_season_kernel(tmp_path):
-    """A mixed season whose widest field is 40 drivers stays INSIDE the
-    fused kernel's widened rank-key packing: the pallas batched
-    backtest must take the one-launch season path (narrow races padded to
-    the widest field) and return valid metrics. Off-TPU this runs the
-    Pallas interpreter (structure-only PRNG)."""
-    from monte_carlo_gp_tpu.models import predictor as predictor_mod
-    from monte_carlo_gp_tpu.validate.backtest import backtest_model_batched
+def test_batched_backtest_mixed_field_widths(tmp_path):
+    """A season whose races have 40 and 20 drivers runs as one batch (the
+    narrow race padded to the widest field, parallel/sharded.py) and
+    returns valid metrics."""
+    from monte_carlo_gp.validate.backtest import backtest_model_batched
 
-    predictor_mod._ALLOW_PALLAS_OFF_TPU = True
-    try:
-        res = backtest_model_batched(
-            _widening_factory(tmp_path, [40, 20]), [2024], seed=4,
-            n_simulations=256, engine="pallas", verbose=False,
-        )
-    finally:
-        predictor_mod._ALLOW_PALLAS_OFF_TPU = False
+    res = backtest_model_batched(
+        _widening_factory(tmp_path, [40, 20]), [2024], seed=4,
+        n_simulations=256, verbose=False,
+    )
     assert res["n_races"] == 2
     assert 0.0 <= res["pole_brier"] <= 1.0
     assert 0.0 <= res["win_brier"] <= 1.0
-
-
-@pytest.mark.slow
-def test_batched_backtest_mixed_field_over128_falls_back(tmp_path, caplog):
-    """One 130-driver race pushes the season past the fused kernel's
-    128-driver cap: backtest_model_batched(engine='pallas') must drop to the
-    per-race path, whose oversize races fall back to the XLA engine (logged
-    `engine_fallback_xla` event — the degraded path is observable, not
-    silent), and still return valid metrics (reference validation.py:161-209
-    is field-size-generic)."""
-    import logging
-
-    from monte_carlo_gp_tpu.models import predictor as predictor_mod
-    from monte_carlo_gp_tpu.validate.backtest import backtest_model_batched
-
-    predictor_mod._ALLOW_PALLAS_OFF_TPU = True
-    try:
-        with caplog.at_level(logging.INFO, logger="mcgp"):
-            # 64 sims: the oversize race runs the XLA engine on the CPU
-            # mesh, where D=130 rank passes cost ~10 ms/sim-lap — the test
-            # asserts routing + metric validity, not statistics.
-            res = backtest_model_batched(
-                _widening_factory(tmp_path, [130, 20]), [2024], seed=4,
-                n_simulations=64, engine="pallas", verbose=False,
-            )
-    finally:
-        predictor_mod._ALLOW_PALLAS_OFF_TPU = False
-    assert res["n_races"] == 2
-    assert 0.0 <= res["pole_brier"] <= 1.0
-    assert 0.0 <= res["win_brier"] <= 1.0
-    assert any("engine_fallback_xla" in r.message for r in caplog.records)
 
 
 @pytest.mark.slow
@@ -433,7 +377,7 @@ def test_alt_quali_models_beat_elo_pole_brier(tmp_path):
                 quali_model=quali_model,
             )
             if bayes_budget is not None:
-                from monte_carlo_gp_tpu.models.bayesian import (
+                from monte_carlo_gp.models.bayesian import (
                     BayesianQualiModel,
                 )
 

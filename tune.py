@@ -6,7 +6,7 @@ No reference analogue — the reference hardcodes these scalars
 (/root/reference/src/predictor.py:59-64) and re-running its minutes-long
 backtest per candidate is the only way to compare them. Here the host
 preparation runs once and every configuration reuses one compiled device
-program under common random numbers (see monte_carlo_gp_tpu/validate/tune.py).
+program under common random numbers (see monte_carlo_gp/validate/tune.py).
 
     python tune.py --seasons 2024 --synthetic \
         --grid sc_prob=0.005,0.01,0.02 --grid variance_scale=0.8,1.0,1.25
@@ -66,28 +66,20 @@ def main():
                         help="Use the deterministic synthetic data backend")
     parser.add_argument("--synthetic-seed", type=int, default=2718)
     parser.add_argument(
-        "--engine", choices=["auto", "xla", "pallas"], default="auto",
+        "--engine", choices=["auto", "xla"], default="auto",
     )
     args = parser.parse_args()
     if not args.grid:
         raise SystemExit("at least one --grid KEY=V1,V2,... is required")
     grid = parse_grid(args.grid)
 
-    from monte_carlo_gp_tpu.models.predictor import F1Predictor, resolve_engine
-    from monte_carlo_gp_tpu.utils.jax_setup import (
-        enable_persistent_compilation_cache,
-        honor_platform_env,
-    )
-
-    honor_platform_env()
-    from monte_carlo_gp_tpu.validate.tune import sweep_backtest
-
-    enable_persistent_compilation_cache(args.cache_dir)
+    from monte_carlo_gp.models.predictor import F1Predictor, resolve_engine
+    from monte_carlo_gp.validate.tune import sweep_backtest
 
     def predictor_factory():
         backend = None
         if args.synthetic:
-            from monte_carlo_gp_tpu.data.synthetic import SyntheticBackend
+            from monte_carlo_gp.data.synthetic import SyntheticBackend
 
             backend = SyntheticBackend(seed=args.synthetic_seed)
         return F1Predictor(
